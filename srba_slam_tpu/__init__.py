@@ -1,14 +1,14 @@
-"""srba_slam_tpu — a TPU-native stereo SLAM framework.
+"""srba_slam_tpu — a JAX stereo SLAM framework for accelerators.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 famoreno/srba-stereo-slam reference application (stereo visual odometry
 frontend + bag-of-words place recognition + sparser relative bundle
-adjustment backend), built TPU-first:
+adjustment backend), built for an accelerator (today an NVIDIA GPU):
 
 * All per-frame dense compute (FAST/ORB detection, descriptor matching,
   robust pose solving, BoW scoring, bundle adjustment) runs as fixed-shape
-  batched tensor programs compiled once by XLA; Hamming matching rides the
-  MXU as an int8 matmul.
+  batched tensor programs compiled once by XLA; Hamming matching is an
+  exact bf16 matmul with f32 accumulation.
 * All variable-size SLAM state (keyframes, landmarks, kf2kf edges, BoW
   database) lives in padded, masked device arrays with static capacities.
 * A thin host layer handles I/O, configuration and the rare data-dependent

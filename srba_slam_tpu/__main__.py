@@ -26,8 +26,8 @@ def main(argv=None):
     ap.add_argument("--resume", default="", help="restore state before running")
     ap.add_argument("--cpu", action="store_true", help="force the CPU backend")
     ap.add_argument("--batch", type=int, default=0, metavar="B",
-                    help="frames per device dispatch (0 = auto: 8 on TPU, "
-                         "per-frame on CPU)")
+                    help="frames per device dispatch (0 = auto: 8 on an "
+                         "accelerator, per-frame on CPU)")
     ap.add_argument("--gt", "--eval", dest="gt", default="", metavar="FILE",
                     help="ground-truth trajectory (KITTI poses.txt, "
                          "out_kf_poses.txt format, or Nx3 xyz) to report "
@@ -52,6 +52,9 @@ def main(argv=None):
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from srba_slam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from srba_slam_tpu.models.estimator import SRBAStereoSLAMEstimator
     from srba_slam_tpu.utils.framesource import ImageDirSource, SyntheticSource
@@ -97,8 +100,8 @@ def main(argv=None):
 
     if args.fleet:
         # multi-sequence lockstep evaluation over the device mesh — the
-        # TPU-native scale-out axis the single-threaded reference lacks
-        # (SURVEY §2.3); each sequence is a full independent SLAM run
+        # scale-out axis the single-threaded reference lacks (SURVEY §2.3);
+        # each sequence is a full independent SLAM run
         if not args.synthetic:
             print("[srba_slam_tpu] error: --fleet requires --synthetic N "
                   "(multi-directory image fleets are not wired to the CLI)",

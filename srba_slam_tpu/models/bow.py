@@ -1,14 +1,14 @@
-"""Bag-of-binary-words place recognition (TPU-native ≙ DBoW2 + CBoWManager).
+"""Bag-of-binary-words place recognition (≙ DBoW2 + CBoWManager).
 
 Replaces the reference's DBoW2 ``BriefVocabulary``/``BriefDatabase`` pair
 (reference src/CBoWManager.h:48-88: load vocabulary, insert keyframe, query
-ranked similar keyframes) with a design shaped for the MXU instead of an
+ranked similar keyframes) with a design shaped for dense matrix units instead of an
 inverted index:
 
 * **Quantization**: instead of descending the k=8/L=5 tree, every descriptor
   is scored against ALL leaf words at once — one int8 [K,256]x[256,W] matmul
   — and takes the exact Hamming-nearest leaf. Strictly better assignments
-  than the tree's greedy descent, and a single MXU pass.
+  than the tree's greedy descent, and a single matmul pass.
 * **Scoring**: with TF-IDF L1-normalized BoW vectors, the DBoW2 L1 score
   ``1 - 0.5*Σ|v-w|`` equals ``Σ min(v, w)``, so querying the whole database
   is one masked elementwise-min + row-sum over a dense [MAX_KFS, W] matrix —
@@ -160,8 +160,8 @@ def bow_vector(desc_packed: jax.Array, valid: jax.Array,
     """Quantize K packed descriptors to leaf words and build the TF-IDF
     L1-normalized BoW vector. Returns f32 [W_pad]."""
     # exact nearest leaf by Hamming: dist = pop(d) + pop(w) - 2 d·w, argmin
-    # over w. bf16 inputs / f32 accumulation are exact here and avoid the
-    # slow int32 matmul+argmin path on TPU (see ops.hamming).
+    # over w. bf16 inputs / f32 accumulation are exact here (see
+    # ops.hamming).
     db = bitops.unpack_bits(desc_packed, jnp.bfloat16)
     lb = leaf_bits.astype(jnp.bfloat16)
     dot = jax.lax.dot_general(
@@ -171,10 +171,9 @@ def bow_vector(desc_packed: jax.Array, valid: jax.Array,
     )  # [K, W]
     pw = jnp.sum(lb.astype(jnp.float32), axis=-1)  # [W]
     dist = pw[None, :] - 2.0 * dot  # per-row constant pop(d) dropped (argmin-safe)
-    # argmin via two plain f32 reduces (a variadic value+index argmin reduce
-    # is ~1000x slower on this backend — README pitfall 4): find the row
-    # minimum, then the FIRST index attaining it (same tie rule as argmin)
-    # as max over match * (W - idx). All quantities are exact in f32.
+    # argmin via two plain f32 reduces: find the row minimum, then the
+    # FIRST index attaining it (same tie rule as argmin) as max over
+    # match * (W - idx). All quantities are exact in f32.
     w_pad = dist.shape[1]
     m = jnp.min(dist, axis=-1, keepdims=True)          # [K, 1]
     idx = jax.lax.broadcasted_iota(jnp.float32, dist.shape, 1)
@@ -182,7 +181,8 @@ def bow_vector(desc_packed: jax.Array, valid: jax.Array,
     word = (w_pad - first).astype(jnp.int32)           # [K]
     contrib = jnp.where(valid, weights[word], 0.0)
     # scatter-free histogram: one-hot mask * contribution, reduced over K
-    # (scatter-add serializes on TPU; this is two fused elementwise passes)
+    # (two fused elementwise passes, and deterministic — a float
+    # scatter-add lowers to atomics on the GPU)
     onehot = word[:, None] == jax.lax.broadcasted_iota(
         jnp.int32, (word.shape[0], w_pad), 1)
     v = jnp.sum(jnp.where(onehot, contrib[:, None], 0.0), axis=0)

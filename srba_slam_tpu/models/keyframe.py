@@ -1,4 +1,4 @@
-"""Fixed-capacity keyframe store (TPU-native ≙ CStereoSLAMKF + vector of KFs).
+"""Fixed-capacity keyframe store (≙ CStereoSLAMKF + vector of KFs).
 
 The reference keeps a ``std::vector<CStereoSLAMKF>`` of keyframes, each with
 left/right keypoints, 256-bit descriptors, L-R matches, globally unique match

@@ -1,6 +1,6 @@
 // Native stereo frame loader with background prefetch.
 //
-// TPU-native replacement for the I/O role MRPT's CCameraSensor image_dir
+// Replacement for the I/O role MRPT's CCameraSensor image_dir
 // grabber plays in the reference (src/CSRBAStereoSLAMEstimator.cpp:1194-1197,
 // frame pull at :44): decodes numbered stereo PNG/PGM pairs off the hot path
 // on a worker thread, double-buffering ahead of the consumer so the SLAM loop
@@ -207,8 +207,8 @@ int fl_next(void* handle, int* index, int* width, int* height) {
 }
 
 // Frames are handed to Python as native 8-bit grayscale (device programs
-// cast on-chip; keeping the host copy at 1 byte/px quarters upload bytes
-// through bandwidth-limited tunneled runtimes).
+// cast on the device; keeping the host copy at 1 byte/px quarters the
+// host->device bytes).
 void fl_copy(void* handle, uint8_t* left_out, uint8_t* right_out) {
   (void)handle;
   if (!pending_) return;

@@ -1,15 +1,14 @@
 """FAST-9/16 corner detection as a fixed-shape whole-image tensor program.
 
-TPU-native equivalent of the FAST detector inside the reference's stereo-vo
+Equivalent of the FAST detector inside the reference's stereo-vo
 engine (forced ORB detection mode, reference src/CSRBAStereoSLAMEstimator.cpp:1135
 and demo/config_imgdir_kitti_srba.ini FAST threshold at SRBA_DETECT).
 
 Instead of the CPU's per-pixel early-exit scan, every pixel is tested at once:
-the 16 Bresenham-circle neighbours are materialized as 16 shifted views of the
-image (cheap XLA slices), the brighter/darker arc test becomes a handful of
-rotate-AND reductions, and the corner score (max threshold that keeps the
-corner — OpenCV's nonmax score) becomes rotate-min/max reductions. Everything
-fuses into one pass over the image on the VPU.
+the 16 Bresenham-circle neighbours are 16 shifted views of the image, and the
+corner score (max threshold that keeps the corner — OpenCV's nonmax score) is
+a min/max over the 16 contiguous 9-arcs, all elementwise, which XLA fuses
+into one pass over the image.
 """
 
 from __future__ import annotations
@@ -37,19 +36,14 @@ def _shift(img: jax.Array, dy: int, dx: int) -> jax.Array:
     return jnp.roll(img, shift=(-dy, -dx), axis=(0, 1))
 
 
-def _rot(x: jax.Array, k: int) -> jax.Array:
-    """Circular shift along the leading (16,) circle axis."""
-    return jnp.roll(x, shift=-k, axis=0)
-
-
-def _window9(x: jax.Array, combine) -> jax.Array:
-    """combine() over all 9-long contiguous circular windows; x is [16, ...].
-
-    Returns [16, ...] where out[i] = combine over x[i..i+8 (mod 16)].
-    log-depth: w3 = c(x, x+1, x+2); w9 = c(w3, w3+3, w3+6).
-    """
-    w3 = combine(combine(x, _rot(x, 1)), _rot(x, 2))
-    return combine(combine(w3, _rot(w3, 3)), _rot(w3, 6))
+def _window9(vals: list, combine) -> list:
+    """combine() over all 9-long contiguous circular windows of the 16
+    per-tap arrays: out[i] = combine over vals[i..i+8 (mod 16)].
+    log-depth: w3 = c(v, v+1, v+2); w9 = c(w3, w3+3, w3+6)."""
+    w3 = [combine(combine(vals[i], vals[(i + 1) % 16]), vals[(i + 2) % 16])
+          for i in range(16)]
+    return [combine(combine(w3[i], w3[(i + 3) % 16]), w3[(i + 6) % 16])
+            for i in range(16)]
 
 
 @functools.partial(jax.jit, static_argnames=("margin",))
@@ -69,14 +63,16 @@ def fast_score_map(img: jax.Array, threshold: jax.Array, margin: int = 16) -> ja
     """
     img = img.astype(jnp.float32)
     h, w = img.shape
-    circle = jnp.stack([_shift(img, dy, dx) for (dy, dx) in CIRCLE])  # [16,H,W]
-    d = circle - img[None]  # contrast of each circle pixel vs center
+    # contrast of each circle pixel vs the center: 16 separate [H, W] views
+    # (a list, not a stacked [16, H, W] tensor, so the whole score is one
+    # elementwise expression that XLA fuses into a single pass)
+    d = [_shift(img, dy, dx) - img for (dy, dx) in CIRCLE]
 
     # candidate test: some 9-contiguous arc entirely > t (bright) or < -t (dark)
-    min9 = _window9(d, jnp.minimum)   # [16,H,W] min over each arc
+    min9 = _window9(d, jnp.minimum)   # min over each arc
     max9 = _window9(d, jnp.maximum)
-    bright_score = jnp.max(min9, axis=0)   # >  t  somewhere => corner
-    dark_score = -jnp.min(max9, axis=0)    # > t (negated) => dark corner
+    bright_score = functools.reduce(jnp.maximum, min9)  # > t => bright corner
+    dark_score = -functools.reduce(jnp.minimum, max9)   # > t => dark corner
     score = jnp.maximum(bright_score, dark_score)
     is_corner = score > threshold
     score = jnp.where(is_corner, score, 0.0)

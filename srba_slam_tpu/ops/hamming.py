@@ -1,14 +1,14 @@
-"""Pairwise Hamming distance on the MXU.
+"""Pairwise Hamming distance as one matmul.
 
 The reference computes brute-force Hamming matching with
 ``cv::BFMatcher(NORM_HAMMING)`` (src/CSRBAStereoSLAMEstimator.cpp:1447-1452) —
-an N×M scalar popcount loop on CPU. On TPU the same computation is one small
-integer matmul: with descriptors unpacked to {0,1} vectors a, b,
+an N×M scalar popcount loop on CPU. Here the same computation is one small
+matmul: with descriptors unpacked to {0,1} vectors a, b,
 
     hamming(a, b) = popcount(a) + popcount(b) - 2 * <a, b>
 
 so the full N×M distance matrix is ``pa[:,None] + pb[None,:] - 2 A @ B^T``
-with an exact int32-accumulated product that rides the systolic array.
+with an exact product (bf16 operands, f32 accumulation).
 """
 
 from __future__ import annotations
@@ -22,11 +22,10 @@ from srba_slam_tpu.ops import bits as bitops
 def hamming_matrix_unpacked(a_bits: jax.Array, b_bits: jax.Array) -> jax.Array:
     """{0,1} [N,256] x [M,256] -> f32 [N,M] exact Hamming distances.
 
-    bf16 inputs + f32 MXU accumulation: bits are exact in bf16 and the sums
-    stay below 2^24, so the result is exact while riding the fast matmul
-    path. (int8/int32 variants measure ~50x slower on v5e: int32 argmin /
-    variadic integer reduces serialize — keep the whole matching pipeline in
-    f32.)
+    bf16 inputs + f32 accumulation: bits are exact in bf16 and the sums
+    stay below 2^24, so the result is exact on the tensor-core matmul path
+    (TF32 or bf16 rounding cannot touch 0/1 operands). The whole matching
+    pipeline stays in f32 downstream.
     """
     ab = a_bits.astype(jnp.bfloat16)
     bb = b_bits.astype(jnp.bfloat16)

@@ -7,7 +7,7 @@ min_distance=5) with two static-shape passes:
 
 1. local-max NMS: a (2r+1)^2 max-pool (XLA reduce_window); a pixel survives
    only if it equals the local max (ties broken toward the lexically first
-   pixel so exactly one survivor per plateau);
+   pixel of the window);
 2. grid thinning + top-K: the image is cut into min_distance-sized cells,
    each cell keeps its best survivor, and a global top-K over cells produces
    a fixed-capacity keypoint set (padded, masked) — the shape every
@@ -23,22 +23,28 @@ import jax.numpy as jnp
 
 
 def local_max_suppress(score: jax.Array, radius: int = 2) -> jax.Array:
-    """Zero out pixels that are not the maximum of their (2r+1)^2 window."""
+    """Zero out pixels that are not the maximum of their (2r+1)^2 window.
+
+    Ties go to the lexically first pixel: a window maximum survives only if
+    no pixel before it in row-major order inside its window has the same
+    score, so a plateau that fits in one window keeps exactly one pixel.
+    Exact for any float scores (equality tests, no keyed epsilon)."""
     k = 2 * radius + 1
     h, w = score.shape
-    # single keyed max-pool: score with a tiny row-major-index tiebreak, so
-    # exactly one pixel per plateau survives (the lexically first)
-    ridx = (
-        jax.lax.broadcasted_iota(jnp.int32, (h, w), 0) * w
-        + jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
-    ).astype(jnp.float32)
-    eps = 1e-3 / (h * w)
-    keyed = score - eps * ridx
-    pooled_keyed = jax.lax.reduce_window(
-        keyed, -jnp.inf, jax.lax.max, (k, k), (1, 1), "SAME"
+    pooled = jax.lax.reduce_window(
+        score, -jnp.inf, jax.lax.max, (k, k), (1, 1), "SAME"
     )
-    is_max = keyed >= pooled_keyed
-    return jnp.where(is_max & (score > 0.0), score, 0.0)
+    keep = (score >= pooled) & (score > 0.0)
+    padded = jnp.pad(score, radius, constant_values=-jnp.inf)
+    for dy in range(-radius, 1):
+        for dx in range(-radius, radius + 1):
+            if dy == 0 and dx >= 0:
+                break
+            # score[y + dy, x + dx]: a pixel that precedes (y, x)
+            prev = padded[radius + dy:radius + dy + h,
+                          radius + dx:radius + dx + w]
+            keep = keep & (prev != score)
+    return jnp.where(keep, score, 0.0)
 
 
 @functools.partial(jax.jit, static_argnames=("cell", "k"))

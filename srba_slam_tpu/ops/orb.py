@@ -1,6 +1,6 @@
 """Oriented 256-bit binary (ORB-style) descriptors as batched gathers.
 
-TPU-native equivalent of the ORB descriptor stage inside the reference's
+Equivalent of the ORB descriptor stage inside the reference's
 stereo-vo engine (forced dmORB mode, reference
 src/CSRBAStereoSLAMEstimator.cpp:1135; 1 octave per
 demo/config_imgdir_kitti_srba.ini RECTIFY nOctaves=1).
@@ -172,8 +172,7 @@ def describe(img: jax.Array, ys: jax.Array, xs: jax.Array, valid: jax.Array,
     if theta_override is None and not oriented and patch_safe:
         # FAST PATH (the VO frontend's): upright tests sample at FIXED
         # integer offsets, so instead of 512 random point-gathers per
-        # keypoint (random HBM access dominates the whole frontend on TPU),
-        # block-gather ONE 33x33 patch per keypoint (vmapped dynamic_slice
+        # keypoint, block-gather ONE 33x33 patch per keypoint (vmapped dynamic_slice
         # -> a structured gather of contiguous blocks) and do the 256
         # comparisons as constant-index takes inside the patch. The sampled
         # pixels are identical, so the descriptors are bit-identical to the

@@ -1,6 +1,6 @@
 """Global SE(3) pose-graph optimization (epilogue solver).
 
-TPU-native ≙ ``mrpt::graphslam::optimize_graph_spa_levmarq`` over the kf2kf
+≙ ``mrpt::graphslam::optimize_graph_spa_levmarq`` over the kf2kf
 graph exported by the SRBA engine (reference
 src/CSRBAStereoSLAMEstimator.cpp:946-957): given relative-pose constraints
 T_uv on edges, find absolute poses minimizing
@@ -11,7 +11,7 @@ hand-tuned Jacobians: the sparse block Jacobian is obtained with
 ``jax.jacfwd`` through the same compose/log code the rest of the framework
 uses (XLA batches the tangents), and the normal equations are solved with a
 dense Cholesky — at SLAM sizes (≤ 512 KFs → a 3072² system) that is
-milliseconds on the MXU. Fixed shapes, masked nodes/edges, LM damping with
+milliseconds on the accelerator. Fixed shapes, masked nodes/edges, LM damping with
 masked accept/reject.
 """
 

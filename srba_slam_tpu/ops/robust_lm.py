@@ -1,6 +1,6 @@
 """Robust Gauss-Newton / Levenberg-Marquardt SE(3) pose estimation.
 
-TPU-native equivalent of the stereo-vo engine's least-squares pose solver
+Equivalent of the stereo-vo engine's least-squares pose solver
 (the ``getChangeInPose`` / ``processNewImagePair`` contract, reference
 src/CSRBAStereoSLAMEstimator.cpp:2139-2177 and the LEAST_SQUARES config
 section of demo/config_imgdir_kitti_srba.ini): estimate the rigid transform

@@ -1,16 +1,17 @@
-"""Multi-chip scale-out via jax.sharding over a device mesh.
+"""Multi-device scale-out via jax.sharding over a device mesh.
 
 The reference is strictly single-threaded (SURVEY §2.3) — there is no
-communication layer to port. The TPU-native win is *embarrassingly parallel
-batch axes*: many stereo sequences (multi-run evaluation, feature-budget
-sweeps, fleet replay) processed simultaneously, one sequence per mesh slot,
-with XLA inserting the ICI collectives for any cross-sequence reduction
-(global statistics, fleet-level convergence checks).
+communication layer to port. The win is *embarrassingly parallel batch
+axes*: many stereo sequences (multi-run evaluation, feature-budget sweeps,
+fleet replay) processed simultaneously, one sequence per mesh slot, with XLA
+inserting the collectives for any cross-sequence reduction (global
+statistics, fleet-level convergence checks).
 
-Everything here builds on the exact same jitted programs the single-chip
-pipeline uses — the batch dimension is sharded with ``NamedSharding`` /
-``pjit`` and XLA partitions the whole step; no NCCL/MPI analog exists or is
-needed (collectives ride ICI automatically).
+Everything here builds on the exact same jitted programs the single-device
+pipeline uses — the batch dimension is sharded with ``NamedSharding`` and
+XLA partitions the whole step, handing the collectives to NCCL on GPUs. The
+mesh is flat (1-D): every card of an NVLink host reaches every other at the
+same rate.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ def _batched_step(lefts, rights, prev: FrameFeatures, init_pose, cam: StereoCame
     """One VO step for B sequences at once: extract + stereo-match each
     sequence's pair, track against its previous frame, solve its pose.
     Returns per-sequence features/poses plus fleet-level aggregates (the
-    cross-shard reduction XLA lowers to ICI collectives)."""
+    cross-shard reduction XLA lowers to collectives)."""
 
     def one(left, right, prev_i, init_i):
         cur = extract_and_match(left, right, cam, fast_th, orb_th, k=k, cell=cell)

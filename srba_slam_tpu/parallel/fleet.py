@@ -2,8 +2,7 @@
 
 ``FleetSLAM`` advances S independent SLAM runs in frame lockstep with every
 device stage batched across sequences and sharded over the mesh's ``batch``
-axis (one/few sequences per device; XLA partitions the programs, collectives
-ride ICI):
+axis (one/few sequences per device; XLA partitions the programs):
 
 * frontend + tracking + robust pose for ALL sequences is ONE sharded program
   per frame, with per-sequence adaptive FAST/ORB thresholds and the
@@ -22,8 +21,8 @@ ride ICI):
   pose equality).
 
 The reference app is strictly single-threaded (SURVEY §2.3); this module is
-the TPU-native scale-out axis: multi-run evaluation, parameter sweeps, fleet
-replay.
+the scale-out axis across devices: multi-run evaluation, parameter sweeps,
+fleet replay.
 """
 
 from __future__ import annotations
@@ -101,7 +100,6 @@ class FleetSLAM:
 
         opts = e0.opts
         cam = e0.cam
-        m = opts.da_stage2_method
         leaf_bits = e0.bow._leaf_bits
         weights = e0.bow._weights
 
@@ -113,9 +111,13 @@ class FleetSLAM:
                 residual_th=opts.residual_th,
                 max_y_diff_epipolar=opts.max_y_diff_epipolar,
                 filter_by_direction=opts.da_filter_by_direction,
-                use_fund_matrix=m in (1, 3),
-                use_change_pose=m in (2, 3),
+                # the same cascade gates as the estimator's own check
+                # (SRBAStereoSLAMEstimator._kf_check_dispatch)
+                filter_by_orb_distance=opts.da_filter_by_orb_distance,
+                use_fund_matrix=opts.da_filter_by_fund_matrix,
+                use_change_pose=opts.da_filter_by_pose_change,
                 kernel_param=e0.vo_opts.kernel_param,
+                ransac_n_hyp=e0._ransac_n_hyp,
             )
 
         return jax.jit(jax.vmap(one))
@@ -170,7 +172,7 @@ class FleetSLAM:
             self._prev_stacked = None  # (re)stack from per-seq state below
             return
 
-        # native dtype (typically uint8): the frontend casts on-chip, and
+        # native dtype (typically uint8): the frontend casts on the device, and
         # 8-bit uploads quarter the host->device bytes
         lefts = jnp.asarray(np.stack([f[0] for f in frames]))
         rights = jnp.asarray(np.stack([f[1] for f in frames]))

@@ -1,6 +1,6 @@
 """SE(3) / SO(3) algebra as pure JAX.
 
-TPU-native replacement for the pose algebra the reference pulls from MRPT
+Replacement for the pose algebra the reference pulls from MRPT
 (``CPose3DRotVec`` / ``CPose3D`` — see reference src/srba-stereo-slam_common.h:58-72
 and the compose/inverse call sites in src/CSRBAStereoSLAMEstimator.cpp:327-330,922).
 
@@ -17,9 +17,10 @@ import jax.numpy as jnp
 
 _EPS = 1e-9
 
-# Pose algebra operates on tiny 3x3 blocks; on TPU the default matmul
-# precision is bfloat16, which is far too coarse for chained SE(3)
-# compositions. Force full f32 everywhere (negligible cost at these shapes).
+# Pose algebra operates on tiny 3x3 blocks; on the GPU the default f32
+# matmul precision may run in TF32 (~3 decimal digits), far too coarse for
+# chained SE(3) compositions. Force full f32 everywhere (negligible cost at
+# these shapes).
 _HI = jax.lax.Precision.HIGHEST
 
 

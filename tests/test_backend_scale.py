@@ -1,4 +1,4 @@
-"""Backend scale test (round-3, VERDICT item 8): 300+ keyframes, multiple
+"""Backend scale test: 300+ keyframes, multiple
 loop closures, wall-time budgets on the host graph bookkeeping.
 
 Drives ``SRBAEngine`` directly with synthetic observations over a 2-lap

@@ -166,8 +166,8 @@ def test_flush_before_insert_between_pipelined_and_strict():
     window solves land right before the NEXT insertion) must keep decisions
     identical to per-frame stepping and land poses CLOSER to the strict
     schedule than the pipelined default does — each insertion seeds from
-    its predecessor's optimized state (VERDICT r4 #4; the measured fps
-    points live in tools/solve_sync_probe.py / BASELINE.md)."""
+    its predecessor's optimized state (tools/solve_sync_probe.py measures
+    the modes' cost)."""
     cam = small_cam()
     frames = list(SyntheticSource(cam, n_frames=25, seed=11, step=0.12))
 
@@ -201,7 +201,7 @@ def test_flush_before_insert_between_pipelined_and_strict():
 
 
 def test_batched_single_transfer_per_batch(monkeypatch):
-    """The batched loop's latency contract on tunneled runtimes: ONE
+    """The batched loop's latency contract: ONE
     blocking device->host transfer per processed batch (scan outputs +
     queued window solves + deferred checks all ride the same bulk_pull),
     plus at most the final resolve/flush pair. Speculation-miss replays

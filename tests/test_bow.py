@@ -99,7 +99,7 @@ def test_load_reference_vocabulary_smoke():
 
 
 def test_multiframe_vocabulary_beats_single_frame():
-    """VERDICT r3 #6: the fallback vocabulary trained from the first N
+    """The fallback vocabulary trained from the first N
     frames' descriptors (estimator ``ensure_vocabulary``, voc_train_frames)
     generalizes better than the old 1-frame bootstrap on the street
     workload: lower quantization distance on UNSEEN frames, and correct

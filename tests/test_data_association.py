@@ -276,3 +276,31 @@ def test_fused_checks_batch_chains_and_pads(rng):
                                       np.zeros_like(np.asarray(a[3:])))
     np.testing.assert_array_equal(np.asarray(db_f[3:]),
                                   np.zeros((max_kfs - 3, w_pad), np.float32))
+
+
+def test_horn_seed_matches_float64_kabsch(rng):
+    """The DA cascade's Horn 3D-3D seed (full-precision f32 products) agrees
+    with a float64 numpy Kabsch fit over the same masked correspondences."""
+    from srba_slam_tpu.models.data_association import _horn_seed
+
+    n = 300
+    p_oth = np.stack([rng.uniform(-8, 8, n), rng.uniform(-2, 2, n),
+                      rng.uniform(4, 40, n)], -1)
+    pose = np.array([0.03, -0.12, 0.02, 0.7, -0.1, 2.5])
+    R_true, t_true = se3_np.exp(pose)
+    p_cur = p_oth @ R_true.T + t_true + rng.normal(0, 0.01, (n, 3))
+    w0 = rng.random(n) < 0.8
+
+    seed = np.asarray(_horn_seed(
+        jnp.asarray(p_oth, jnp.float32), jnp.asarray(p_cur, jnp.float32),
+        jnp.asarray(w0), jnp.zeros(6, jnp.float32)))
+
+    a, b = p_oth[w0], p_cur[w0]
+    ca, cb = a.mean(0), b.mean(0)
+    U, _s, Vt = np.linalg.svd((a - ca).T @ (b - cb))
+    d = np.sign(np.linalg.det(Vt.T @ U.T))
+    R = Vt.T @ np.diag([1.0, 1.0, d]) @ U.T
+    ref = se3_np.log(R, cb - R @ ca)
+    np.testing.assert_allclose(seed[:3], ref[:3], atol=2e-5)
+    np.testing.assert_allclose(seed[3:], ref[3:], atol=5e-4)
+    np.testing.assert_allclose(ref, pose, atol=1e-2)

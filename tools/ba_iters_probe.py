@@ -31,9 +31,9 @@ def run_one(s1: int, full: int) -> None:
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_srba"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from srba_slam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import bench as B
 

@@ -41,9 +41,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_srba"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from srba_slam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     import bench as B

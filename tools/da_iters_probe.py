@@ -33,9 +33,9 @@ def run_one(cap: int) -> dict:
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_srba"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from srba_slam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from srba_slam_tpu.models import data_association as da_mod
 

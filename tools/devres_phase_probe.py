@@ -1,4 +1,4 @@
-"""Phase breakdown of the DEVICE-RESIDENT loop (VERDICT r3 #1).
+"""Phase breakdown of the DEVICE-RESIDENT loop .
 
 bench.py's device_resident_fps is the framework-attributable headline
 (frames pre-staged on device — what DMA'd camera input would see). This

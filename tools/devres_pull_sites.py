@@ -1,5 +1,5 @@
 """Attribute every blocking bulk_pull of the device-resident loop to its
-call site (VERDICT r4 #8 stretch prep).
+call site.
 
 `tools/devres_phase_probe.py` reports the pull phase as one total; this
 probe records, per pull, the caller chain inside the estimator plus the

@@ -1,11 +1,9 @@
-"""Per-phase breakdown of the fleet lockstep loop (VERDICT r3 #3).
+"""Per-phase breakdown of the fleet lockstep loop.
 
-The dryrun's measured fleet scaling (~4x on 8 virtual devices) needs
-attribution: on THIS host the "8-device mesh" is one physical core, so all
-device compute serializes — the only question is how much of the fleet
-step is device compute (which real ICI parallelizes ~perfectly for this
-embarrassingly parallel axis) vs host bookkeeping / pulls (which do not
-scale with devices either way).
+On a virtual CPU mesh all device compute serializes on the host's cores;
+the question is how much of the fleet step is device compute (which real
+devices run in parallel on this embarrassingly parallel axis) vs host
+bookkeeping / pulls (which do not scale with devices either way).
 
 Phases per fleet step:
   * vo_dev   — the sharded VO program + its bulk pull (device + sync)
@@ -14,8 +12,8 @@ Phases per fleet step:
   * checks   — per-sequence host check logic incl. SRBA insertion
 
 Prints one JSON line with the fleet/solo phase totals, the observed
-scaling, and the ICI-PROJECTED scaling = throughput if the device phases
-(vo_dev + qa_dev) ran S-way parallel instead of serialized on one core.
+scaling, and the PROJECTED scaling = throughput if the device phases
+(vo_dev + qa_dev) ran S-way parallel instead of serialized on the host.
 Run standalone:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
   python tools/fleet_phase_probe.py
@@ -193,10 +191,9 @@ def main():
     fleet_fps = n_dev * n_frames / fleet_total
     solo_fps = n_frames / solo_total
     observed = fleet_fps / solo_fps
-    # ICI projection: on real hardware the device phases of the fleet step
-    # run n_dev-way parallel (one sequence per chip, zero cross-talk on
-    # this embarrassingly parallel axis) instead of SERIALIZED on this
-    # host's single core
+    # projection: on real devices the device phases of the fleet step run
+    # n_dev-way parallel (one sequence per device, zero cross-talk on this
+    # embarrassingly parallel axis) instead of SERIALIZED on the host
     dev_fleet = fleet_ph["vo_dev"] + fleet_ph["qa_dev"]
     projected_total = fleet_total - dev_fleet + dev_fleet / n_dev
     raw = (n_dev * n_frames / projected_total) / solo_fps

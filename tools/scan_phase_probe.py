@@ -1,8 +1,7 @@
 """Attribute the vo_scan device cost: detect/describe/match vs LS solves.
 
-vo_scan is ~2.2 ms/frame on the live v5e (tools/microbench.py) — at a
-60-frame device batch that is ~133 ms, the single biggest device program
-in the device-resident loop. Its per-frame work splits into the dense
+vo_scan is the single biggest device program in the device-resident loop
+(tools/microbench.py times it). Its per-frame work splits into the dense
 frontend (FAST + NMS + ORB + stereo match, image-sized tensor ops) and the
 sequential two-stage robust GN solves (tiny-op while_loops under the
 frame-axis lax.scan). This probe times the same B-frame scan compiled with
@@ -35,9 +34,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_srba"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from srba_slam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     import bench as B

@@ -1,5 +1,5 @@
 """Measure the solve-scheduling Pareto: pipelined vs flush-before-insert
-vs strict (VERDICT r3 #5, r4 #4).
+vs strict.
 
 Three schedulings of the SRBA window solves in the batched/device-resident
 loop:
