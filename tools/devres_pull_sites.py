@@ -37,7 +37,9 @@ def main():
     from srba_slam_tpu.models import estimator as est_mod
     from srba_slam_tpu.utils import pull as pull_mod
 
-    bench._enable_persistent_compile_cache()
+    from srba_slam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     cam, frames = bench._build_workload()
     frames = frames[: bench.WARMUP_FRAMES + bench.TIMED_FRAMES]
 

@@ -179,6 +179,9 @@ def main():
 
     n_dev = int(os.environ.get("FLEET_PROBE_DEVICES", "8"))
     g._bootstrap_virtual_mesh(n_dev)
+    from srba_slam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     n_frames = int(os.environ.get("FLEET_PROBE_FRAMES", "10"))
 
     # warm all programs (both mesh sizes) in-process

@@ -77,7 +77,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    bench._enable_persistent_compile_cache()
+    from srba_slam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     cam, frames = bench._build_workload()
     frames = frames[: bench.WARMUP_FRAMES + bench.TIMED_FRAMES]
 
